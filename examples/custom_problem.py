@@ -1,7 +1,7 @@
 """User extension walkthrough: your own problem on your own mesh.
 
 The reference let users pose new problems by writing NGSolve forms over any
-mesh; here the equivalents are :class:`spacetime_tpu.Problem` (a manufactured
+mesh; here the equivalents are :class:`spacetime.Problem` (a manufactured
 problem is just an exact-solution formula in jax.numpy — the source
 g = ∂t u − Δu comes from autodiff) and ``load_mesh`` (Gmsh 2.2 / Triangle
 files). This example
@@ -22,11 +22,11 @@ import tempfile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from spacetime_tpu.utils import use_cpu
+from spacetime.utils import use_cpu
 
 use_cpu()
 
-from spacetime_tpu import (  # noqa: E402
+from spacetime import (  # noqa: E402
     HeatSolver,
     P1System,
     Problem,
@@ -34,7 +34,7 @@ from spacetime_tpu import (  # noqa: E402
     register_problem,
     save_mesh,
 )
-from spacetime_tpu.fem import l_shape_mesh, uniform_time_grid  # noqa: E402
+from spacetime.fem import l_shape_mesh, uniform_time_grid  # noqa: E402
 
 
 def exact(t, x):

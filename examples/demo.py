@@ -13,12 +13,12 @@ import os
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from spacetime_tpu.utils import use_cpu
+from spacetime.utils import use_cpu
 
 use_cpu()
 
-from spacetime_tpu.oracle import solve_heat_equation  # noqa: E402
-from spacetime_tpu.solver import solve_heat_equation_tpu  # noqa: E402
+from spacetime.oracle import solve_heat_equation  # noqa: E402
+from spacetime.solver import solve_heat_equation_device  # noqa: E402
 
 
 def main():
@@ -33,7 +33,7 @@ def main():
 
     print("\n== oracle vs jitted JAX path (65x65 x 64ts) ==")
     ro = solve_heat_equation("smooth2d", space_n=64, time_levels=6, tol=1e-6)
-    rj = solve_heat_equation_tpu("smooth2d", space_n=64, time_levels=6, tol=1e-6)
+    rj = solve_heat_equation_device("smooth2d", space_n=64, time_levels=6, tol=1e-6)
     print(f"oracle: {ro.iterations} iters, err {ro.l2_error:.6e}")
     print(f"jax:    {rj.iterations} iters, err {rj.l2_error:.6e}")
     drift = max(

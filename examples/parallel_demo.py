@@ -28,7 +28,7 @@ jax.config.update("jax_enable_x64", True)
 
 import numpy as np  # noqa: E402
 
-from spacetime_tpu import (  # noqa: E402
+from spacetime import (  # noqa: E402
     ExplicitHeatSolver,
     HeatSolver,
     P1System,
@@ -36,7 +36,7 @@ from spacetime_tpu import (  # noqa: E402
     get_problem,
     make_time_mesh,
 )
-from spacetime_tpu.fem import unit_square_mesh, uniform_time_grid  # noqa: E402
+from spacetime.fem import unit_square_mesh, uniform_time_grid  # noqa: E402
 
 
 def main():

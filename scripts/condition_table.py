@@ -14,7 +14,7 @@ import sys
 
 sys.path.insert(0, ".")
 
-from spacetime_tpu.utils import use_cpu  # noqa: E402
+from spacetime.utils import use_cpu  # noqa: E402
 
 use_cpu(x64=True)
 
@@ -29,11 +29,11 @@ def main():
                     help="Lanczos iterations per estimate")
     args = ap.parse_args()
 
-    from spacetime_tpu.fem import P1System, domain_mesh
-    from spacetime_tpu.fem.timegrid import graded_time_grid, uniform_time_grid
-    from spacetime_tpu.models import get_problem
-    from spacetime_tpu.solver.heateq import HeatSolver
-    from spacetime_tpu.solver.lanczos import lanczos_condition
+    from spacetime.fem import P1System, domain_mesh
+    from spacetime.fem.timegrid import graded_time_grid, uniform_time_grid
+    from spacetime.models import get_problem
+    from spacetime.solver.heateq import HeatSolver
+    from spacetime.solver.lanczos import lanczos_condition
 
     ladder = [
         ("smooth2d", 8, 3, 0),

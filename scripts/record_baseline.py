@@ -1,7 +1,7 @@
 """Regenerate the oracle baseline table in BASELINE.md.
 
 The reference binary is unavailable (SURVEY.md §0); these oracle numbers are
-the regression baseline the TPU path must match (iteration counts ±1,
+the regression baseline the device path must match (iteration counts ±1,
 residual histories to fp tolerance). Run from the repo root:
 
     python scripts/record_baseline.py
@@ -14,13 +14,13 @@ import time
 
 sys.path.insert(0, ".")
 
-from spacetime_tpu.utils import use_cpu  # noqa: E402
+from spacetime.utils import use_cpu  # noqa: E402
 
 use_cpu()
 
 import numpy as np  # noqa: E402
 
-from spacetime_tpu.oracle import solve_heat_equation  # noqa: E402
+from spacetime.oracle import solve_heat_equation  # noqa: E402
 
 CONFIGS = [
     # (label, problem, space_n, J, extra, tol)

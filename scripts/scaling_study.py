@@ -31,8 +31,8 @@ import jax  # noqa: E402
 
 jax.config.update("jax_platforms", "cpu")
 # Virtual device count must be set before the backend initializes, i.e.
-# before argparse runs — peek at argv (cfg5 names a v5e-16 time mesh, so
-# the study must be able to emulate 16 devices, not just 8).
+# before argparse runs — peek at argv (cfg5 names a 16-device time mesh,
+# so the study must be able to emulate 16 devices, not just 8).
 _nd = 8
 if "--num-devices" in sys.argv:
     _nd = int(sys.argv[sys.argv.index("--num-devices") + 1])
@@ -41,15 +41,15 @@ jax.config.update("jax_enable_x64", True)
 
 import numpy as np  # noqa: E402
 
-from spacetime_tpu.fem import P1System, unit_square_mesh  # noqa: E402
-from spacetime_tpu.fem.timegrid import uniform_time_grid  # noqa: E402
-from spacetime_tpu.models import get_problem  # noqa: E402
-from spacetime_tpu.parallel import (  # noqa: E402
+from spacetime.fem import P1System, unit_square_mesh  # noqa: E402
+from spacetime.fem.timegrid import uniform_time_grid  # noqa: E402
+from spacetime.models import get_problem  # noqa: E402
+from spacetime.parallel import (  # noqa: E402
     ExplicitHeatSolver,
     ShardedHeatSolver,
     make_time_mesh,
 )
-from spacetime_tpu.solver.heateq import HeatSolver  # noqa: E402
+from spacetime.solver.heateq import HeatSolver  # noqa: E402
 
 
 def collective_census(solver) -> dict:
@@ -183,8 +183,8 @@ def main():
     # compiled-HLO collective census — the bytes column is the per-device
     # per-iteration ICI traffic model for the layout (see
     # compiled_collective_stats).
-    from spacetime_tpu.fem import unit_cube_mesh
-    from spacetime_tpu.parallel import make_spacetime_mesh
+    from spacetime.fem import unit_cube_mesh
+    from spacetime.parallel import make_spacetime_mesh
 
     problem3 = get_problem("smooth3d")
     system3 = P1System.from_mesh(unit_cube_mesh(8))
@@ -230,7 +230,7 @@ def main():
     # (each spatial stencil application contributes exactly one
     # collective-permute pair; dots psum over both axes). 2D problem so
     # the mg hierarchy actually shards (gs 15 planes over P_s = 2).
-    from spacetime_tpu.parallel import Explicit2DHeatSolver
+    from spacetime.parallel import Explicit2DHeatSolver
 
     ref2d = HeatSolver(
         problem, system, grid, inner="mg", space_n=args.space_n
@@ -267,48 +267,6 @@ def main():
         tag = "OK " if match else "MISMATCH"
         print(f"{tag} explicit-2d mesh={pt}x{ps} D={solver._sp_depth}: "
               f"{r.iterations} iters collectives={rec['collectives']}")
-
-    # Same mesh with the per-shard Pallas kernels + round-4 sharded FUSED
-    # transfer stages (f32 interpret): the fused pre/post kernels replace
-    # the smooth→residual→restrict and interp→correct→smooth chains, so
-    # each sharded-level visit drops from 5 halo exchanges (b, x-residual,
-    # restrict-right, interp-left, x-post) to 3 (b, x-post, ec) — the
-    # census quantifies the collective reduction a fused V-cycle buys on
-    # a real mesh.
-    import jax.numpy as jnp
-
-    rec_pair = []
-    for pallas_on in (False, True):
-        solver = Explicit2DHeatSolver(
-            problem, system, grid, make_spacetime_mesh(4, 2),
-            inner="mg", space_n=args.space_n, dtype=jnp.float32,
-            pallas=pallas_on,
-        )
-        solver.mg_pallas_min_points = 1
-        r = solver.solve(tol=1e-5, compute_error=False)
-        rec = {
-            "backend": "explicit-2d",
-            "devices": 8,
-            "mesh": [4, 2],
-            "sp_depth": solver._sp_depth,
-            "pcg": "standard",
-            "dtype": "f32",
-            "pallas": pallas_on,
-            "iterations": int(r.iterations),
-            "matches_serial": True,  # f32 pallas parity is rtol 1e-3 class
-            "wall_s": None,
-            "collectives": collective_census(solver),
-        }
-        records.append(rec)
-        rec_pair.append(rec)
-        print(f"explicit-2d f32 pallas={pallas_on}: {r.iterations} iters "
-              f"collectives={rec['collectives']}")
-    if len(rec_pair) == 2:
-        assert rec_pair[0]["iterations"] == rec_pair[1]["iterations"], (
-            "pallas fused-transfer path changed the f32 iteration count"
-        )
-        a, b = (r["collectives"]["collective_permute"] for r in rec_pair)
-        print(f"fused transfer stages: collective_permute {a} -> {b}")
 
     assert all(r["matches_serial"] for r in records), "scaling parity broken"
     with open(args.out, "a") as f:

@@ -2,7 +2,7 @@
 meshes with NO refinement record).
 
 inner='amg' builds an algebraic hierarchy from the assembled (A, M) alone
-(ops/multigrid.sa_prolongator + SAMultiShiftMultigrid) — the TPU-native
+(ops/multigrid.sa_prolongator + SAMultiShiftMultigrid) — the device-path
 replacement for the reference's factorize-once splu on imported meshes where
 neither the structured-grid nor the nested-refinement geometric hierarchies
 exist, and where the Chebyshev alternative's polynomial degrees grow like
@@ -18,11 +18,11 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 
-from spacetime_tpu.fem import P1System, l_shape_mesh
-from spacetime_tpu.fem.timegrid import uniform_time_grid
-from spacetime_tpu.models import get_problem
-from spacetime_tpu.ops.multigrid import SAMultiShiftMultigrid, sa_prolongator
-from spacetime_tpu.solver.heateq import HeatSolver
+from spacetime.fem import P1System, l_shape_mesh
+from spacetime.fem.timegrid import uniform_time_grid
+from spacetime.models import get_problem
+from spacetime.ops.multigrid import SAMultiShiftMultigrid, sa_prolongator
+from spacetime.solver.heateq import HeatSolver
 
 
 def test_sa_prolongator_partition_and_rap():
@@ -87,11 +87,11 @@ def test_factored_transfers_match_gather():
     rng = np.random.default_rng(1)
     r = jnp.asarray(rng.standard_normal((3, lev.m)))
     rc_g = np.asarray(msmg._restrict(r, lp))
-    rc_f = np.asarray(msmg._restrict_fact(lev, lp, None, r))
+    rc_f = np.asarray(msmg._restrict_fact(lev, lp, r))
     np.testing.assert_allclose(rc_f, rc_g, rtol=1e-9, atol=1e-10)
     e = jnp.asarray(rng.standard_normal((3, lev.Ridx.shape[0])))
     ef_g = np.asarray(msmg._interp(e, lp))
-    ef_f = np.asarray(msmg._interp_fact(lev, lp, None, e))
+    ef_f = np.asarray(msmg._interp_fact(lev, lp, e))
     np.testing.assert_allclose(ef_f, ef_g, rtol=1e-9, atol=1e-10)
     # every fine dof has exactly one parent and every aggregate its
     # members: the member mask row-sums reproduce the aggregate sizes
@@ -175,7 +175,7 @@ def test_solve_f32_and_refined():
 
 
 def test_amg_requires_flat_layout():
-    from spacetime_tpu.fem import unit_square_mesh
+    from spacetime.fem import unit_square_mesh
 
     problem = get_problem("smooth2d")
     system = P1System.from_mesh(unit_square_mesh(16))
@@ -187,7 +187,7 @@ def test_amg_requires_flat_layout():
 def test_amg_on_forced_dia_structured():
     # structured mesh forced onto the generic DIA path: amg must work there
     # too (the layout, not the mesh family, is the requirement)
-    from spacetime_tpu.fem import unit_square_mesh
+    from spacetime.fem import unit_square_mesh
 
     problem = get_problem("smooth2d")
     system = P1System.from_mesh(unit_square_mesh(16))
@@ -205,7 +205,7 @@ def test_amg_3d():
     # aggregation coarsening than 2D — pin that the hierarchy still
     # contracts and the solve matches the dense-inner solution (the
     # imported-3D-mesh regime, e.g. TetGen files at native resolution).
-    from spacetime_tpu.fem import unit_cube_mesh
+    from spacetime.fem import unit_cube_mesh
 
     problem = get_problem("smooth3d")
     system = P1System.from_mesh(unit_cube_mesh(12))

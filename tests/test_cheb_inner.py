@@ -11,15 +11,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from spacetime_tpu.fem import P1System, l_shape_mesh, unit_square_mesh
-from spacetime_tpu.fem.timegrid import uniform_time_grid
-from spacetime_tpu.models import get_problem
-from spacetime_tpu.ops.multigrid import (
+from spacetime.fem import P1System, l_shape_mesh, unit_square_mesh
+from spacetime.fem.timegrid import uniform_time_grid
+from spacetime.models import get_problem
+from spacetime.ops.multigrid import (
     chebyshev_degree,
     chebyshev_generic,
     generic_spectral_bounds,
 )
-from spacetime_tpu.solver.heateq import HeatSolver
+from spacetime.solver.heateq import HeatSolver
 
 
 def test_chebyshev_generic_approximates_inverse():
@@ -79,7 +79,7 @@ class TestChebSolve:
 
         if len(jax.devices()) < 4:
             pytest.skip("needs virtual devices")
-        from spacetime_tpu.parallel import ShardedHeatSolver, make_time_mesh
+        from spacetime.parallel import ShardedHeatSolver, make_time_mesh
 
         problem = get_problem("lshape2d")
         system = P1System.from_mesh(l_shape_mesh(10))
@@ -137,7 +137,7 @@ class TestChebSolve:
         assert r.iterations <= 25
 
     def test_graded_grid(self):
-        from spacetime_tpu.fem.timegrid import graded_time_grid
+        from spacetime.fem.timegrid import graded_time_grid
 
         problem = get_problem("lshape2d")
         system = P1System.from_mesh(l_shape_mesh(16))
@@ -158,13 +158,13 @@ class TestChebSolve:
         assert r.residuals[-1] < 1e-8
 
     def test_blocked_ell_f32(self):
-        # the TPU scale combo: blocked-ELL Pallas SpMV (interpret mode on
-        # CPU) + Chebyshev polynomial inner solves, f32
+        # the generic-mesh scale combo: flat-DIA SpMV + Chebyshev
+        # polynomial inner solves, f32
         problem = get_problem("lshape2d")
         system = P1System.from_mesh(l_shape_mesh(16))
         grid = uniform_time_grid(3)
         r = HeatSolver(
-            problem, system, grid, inner="cheb", spatial_format="ell",
+            problem, system, grid, inner="cheb", spatial_format="dia",
             dtype=jnp.float32,
         ).solve(tol=1e-5, compute_error=True)
         assert r.converged and r.iterations <= 12
@@ -176,7 +176,7 @@ class TestChebSolve:
 
         if len(jax.devices()) < 8:
             pytest.skip("needs 8 virtual devices")
-        from spacetime_tpu.parallel import ShardedHeatSolver, make_time_mesh
+        from spacetime.parallel import ShardedHeatSolver, make_time_mesh
 
         problem = get_problem("lshape2d")
         system = P1System.from_mesh(l_shape_mesh(16))
@@ -200,7 +200,7 @@ class TestChebSolve:
 
         if len(jax.devices()) < 4:
             pytest.skip("needs virtual devices")
-        from spacetime_tpu.parallel import ExplicitHeatSolver, make_time_mesh
+        from spacetime.parallel import ExplicitHeatSolver, make_time_mesh
 
         problem = get_problem("lshape2d")
         system = P1System.from_mesh(l_shape_mesh(16))
@@ -216,24 +216,24 @@ class TestChebSolve:
         np.testing.assert_allclose(r4.residuals, r1.residuals, rtol=1e-9)
 
     def test_explicit_ell_f32(self):
-        """The TPU scale combo on the explicit backend: blocked-ELL Pallas
-        SpMV (interpret on CPU) + cheb inners + fused single-reduction PCG."""
+        """The generic-mesh scale combo on the explicit backend: flat-DIA
+        SpMV + cheb inners + fused single-reduction PCG."""
         import jax
 
         if len(jax.devices()) < 4:
             pytest.skip("needs virtual devices")
-        from spacetime_tpu.parallel import ExplicitHeatSolver, make_time_mesh
+        from spacetime.parallel import ExplicitHeatSolver, make_time_mesh
 
         problem = get_problem("lshape2d")
         system = P1System.from_mesh(l_shape_mesh(16))
         grid = uniform_time_grid(4)
         r = ExplicitHeatSolver(
             problem, system, grid, make_time_mesh(4), inner="cheb",
-            spatial_format="ell", dtype=jnp.float32, pcg_variant="fused",
+            spatial_format="dia", dtype=jnp.float32, pcg_variant="fused",
         ).solve(tol=1e-5, compute_error=True)
         assert r.converged and r.iterations <= 12
         # spatial error floor of the 16-cell L-shape mesh (cf. the serial
-        # blocked-ELL test's 1.2885e-02 at 8 timesteps)
+        # flat-DIA test's 1.2885e-02 at 8 timesteps)
         np.testing.assert_allclose(r.l2_error, 1.291e-02, rtol=2e-2)
 
 
@@ -256,22 +256,22 @@ def test_cheb_eps_knob():
 
 
 def test_explicit_dense_ell_combo():
-    """explicit + blocked-ELL + dense inner (unlocked combination)."""
+    """explicit + flat-DIA + dense inner."""
     import jax
 
     if len(jax.devices()) < 4:
         pytest.skip("needs virtual devices")
-    from spacetime_tpu.parallel import ExplicitHeatSolver, make_time_mesh
-    from spacetime_tpu.solver.heateq import HeatSolver as HS
+    from spacetime.parallel import ExplicitHeatSolver, make_time_mesh
+    from spacetime.solver.heateq import HeatSolver as HS
 
     problem = get_problem("lshape2d")
     system = P1System.from_mesh(l_shape_mesh(8))
     grid = uniform_time_grid(3)
-    r1 = HS(problem, system, grid, inner="dense", spatial_format="ell",
+    r1 = HS(problem, system, grid, inner="dense", spatial_format="dia",
             dtype=jnp.float32).solve(tol=1e-5, compute_error=False)
     r4 = ExplicitHeatSolver(
         problem, system, grid, make_time_mesh(4), inner="dense",
-        spatial_format="ell", dtype=jnp.float32,
+        spatial_format="dia", dtype=jnp.float32,
     ).solve(tol=1e-5, compute_error=False)
     assert r4.converged
     assert r4.iterations == r1.iterations
@@ -284,7 +284,7 @@ def test_explicit_cheb_structured_stencil():
 
     if len(jax.devices()) < 4:
         pytest.skip("needs virtual devices")
-    from spacetime_tpu.parallel import ExplicitHeatSolver, make_time_mesh
+    from spacetime.parallel import ExplicitHeatSolver, make_time_mesh
 
     problem = get_problem("smooth2d")
     system = P1System.from_mesh(unit_square_mesh(12))

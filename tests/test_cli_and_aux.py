@@ -7,7 +7,7 @@ import os
 import numpy as np
 import pytest
 
-from spacetime_tpu.run import main as run_main
+from spacetime.run import main as run_main
 
 
 class TestCLI:
@@ -25,6 +25,7 @@ class TestCLI:
     def test_jax_backend_with_condition(self, tmp_path):
         out = tmp_path / "res.jsonl"
         rc = run_main([
+            "--device", "cpu",
             "--backend", "jax", "--space-n", "8", "--time-levels", "3",
             "--estimate-condition", "--out", str(out),
         ])
@@ -36,6 +37,7 @@ class TestCLI:
     def test_refined_flag(self, tmp_path):
         out = tmp_path / "res.jsonl"
         rc = run_main([
+            "--device", "cpu",
             "--backend", "jax", "--dtype", "f32", "--refined",
             "--refine-inner-tol", "3e-4",
             "--tol", "1e-8", "--space-n", "8", "--time-levels", "3",
@@ -54,11 +56,13 @@ class TestCLI:
         with pytest.raises(SystemExit) as ei:
             run_main(["--help"])
         assert ei.value.code == 0
-        assert "--refine-legs" in capsys.readouterr().out
+        out = capsys.readouterr().out
+        assert "--refine-inner-tol" in out and "gpu" in out
 
     def test_sharded_backend(self, tmp_path):
         out = tmp_path / "res.jsonl"
         rc = run_main([
+            "--device", "cpu",
             "--backend", "sharded", "--space-n", "8", "--time-levels", "4",
             "--out", str(out), "--no-error",
         ])
@@ -106,11 +110,11 @@ class TestLanczos:
         assert rec["converged"]
 
     def test_kappa_flat_under_refinement(self):
-        from spacetime_tpu.fem import P1System, unit_square_mesh
-        from spacetime_tpu.fem.timegrid import uniform_time_grid
-        from spacetime_tpu.models import get_problem
-        from spacetime_tpu.solver.heateq import HeatSolver
-        from spacetime_tpu.solver.lanczos import lanczos_condition
+        from spacetime.fem import P1System, unit_square_mesh
+        from spacetime.fem.timegrid import uniform_time_grid
+        from spacetime.models import get_problem
+        from spacetime.solver.heateq import HeatSolver
+        from spacetime.solver.lanczos import lanczos_condition
 
         problem = get_problem("smooth2d")
         kappas = []
@@ -128,11 +132,11 @@ class TestDeterminism:
     def test_same_inputs_same_history(self):
         # SURVEY.md §5: determinism by construction — two identical solves
         # must produce bit-identical residual histories.
-        from spacetime_tpu.solver import solve_heat_equation_tpu
+        from spacetime.solver import solve_heat_equation_device
 
-        r1 = solve_heat_equation_tpu("smooth2d", space_n=8, time_levels=3,
+        r1 = solve_heat_equation_device("smooth2d", space_n=8, time_levels=3,
                                      tol=1e-8, compute_error=False)
-        r2 = solve_heat_equation_tpu("smooth2d", space_n=8, time_levels=3,
+        r2 = solve_heat_equation_device("smooth2d", space_n=8, time_levels=3,
                                      tol=1e-8, compute_error=False)
         assert r1.iterations == r2.iterations
         np.testing.assert_array_equal(r1.residuals, r2.residuals)
@@ -140,7 +144,7 @@ class TestDeterminism:
 
 class TestProfiling:
     def test_phase_timer(self):
-        from spacetime_tpu.utils.profiling import PhaseTimer
+        from spacetime.utils.profiling import PhaseTimer
 
         t = PhaseTimer()
         with t("a"):
@@ -160,11 +164,11 @@ if __name__ == "__main__":
 
 class TestCheckpoint:
     def test_save_resume(self, tmp_path):
-        from spacetime_tpu.fem import P1System, unit_square_mesh
-        from spacetime_tpu.fem.timegrid import uniform_time_grid
-        from spacetime_tpu.models import get_problem
-        from spacetime_tpu.solver.heateq import HeatSolver
-        from spacetime_tpu.utils.checkpoint import load_solution
+        from spacetime.fem import P1System, unit_square_mesh
+        from spacetime.fem.timegrid import uniform_time_grid
+        from spacetime.models import get_problem
+        from spacetime.solver.heateq import HeatSolver
+        from spacetime.utils.checkpoint import load_solution
 
         s = HeatSolver(get_problem("smooth2d"),
                        P1System.from_mesh(unit_square_mesh(8)),
@@ -185,11 +189,11 @@ class TestCheckpoint:
         np.testing.assert_allclose(r2.U, cold.U, atol=1e-8)
 
     def test_periodic_checkpoint(self, tmp_path):
-        from spacetime_tpu.fem import P1System, unit_square_mesh
-        from spacetime_tpu.fem.timegrid import uniform_time_grid
-        from spacetime_tpu.models import get_problem
-        from spacetime_tpu.solver.heateq import HeatSolver
-        from spacetime_tpu.utils.checkpoint import load_solution
+        from spacetime.fem import P1System, unit_square_mesh
+        from spacetime.fem.timegrid import uniform_time_grid
+        from spacetime.models import get_problem
+        from spacetime.solver.heateq import HeatSolver
+        from spacetime.utils.checkpoint import load_solution
 
         s = HeatSolver(get_problem("smooth2d"),
                        P1System.from_mesh(unit_square_mesh(8)),
@@ -219,11 +223,11 @@ class TestCheckpoint:
         resuming it continues the exact Krylov sequence — the combined
         residual history matches an uninterrupted solve to rounding
         (SURVEY.md §5: serialize (u, r, p, iteration))."""
-        from spacetime_tpu.fem import P1System, unit_square_mesh
-        from spacetime_tpu.fem.timegrid import uniform_time_grid
-        from spacetime_tpu.models import get_problem
-        from spacetime_tpu.solver.heateq import HeatSolver
-        from spacetime_tpu.utils.checkpoint import has_pcg_state, load_pcg_state
+        from spacetime.fem import P1System, unit_square_mesh
+        from spacetime.fem.timegrid import uniform_time_grid
+        from spacetime.models import get_problem
+        from spacetime.solver.heateq import HeatSolver
+        from spacetime.utils.checkpoint import has_pcg_state, load_pcg_state
 
         s = HeatSolver(get_problem("smooth2d"),
                        P1System.from_mesh(unit_square_mesh(8)),
@@ -251,11 +255,11 @@ class TestCheckpoint:
         np.testing.assert_allclose(r2.U, cold.U, atol=1e-12)
 
     def test_resume_state_guards(self, tmp_path):
-        from spacetime_tpu.fem import P1System, unit_square_mesh
-        from spacetime_tpu.fem.timegrid import uniform_time_grid
-        from spacetime_tpu.models import get_problem
-        from spacetime_tpu.solver.heateq import HeatSolver
-        from spacetime_tpu.utils.checkpoint import load_pcg_state, save_solution
+        from spacetime.fem import P1System, unit_square_mesh
+        from spacetime.fem.timegrid import uniform_time_grid
+        from spacetime.models import get_problem
+        from spacetime.solver.heateq import HeatSolver
+        from spacetime.utils.checkpoint import load_pcg_state, save_solution
 
         s = HeatSolver(get_problem("smooth2d"),
                        P1System.from_mesh(unit_square_mesh(8)),
@@ -271,10 +275,10 @@ class TestCheckpoint:
             s.solve(maxiter=50, resume_state=fake, compute_error=False)
 
     def test_periodic_checkpoint_guards(self, tmp_path):
-        from spacetime_tpu.fem import P1System, unit_square_mesh
-        from spacetime_tpu.fem.timegrid import uniform_time_grid
-        from spacetime_tpu.models import get_problem
-        from spacetime_tpu.solver.heateq import HeatSolver
+        from spacetime.fem import P1System, unit_square_mesh
+        from spacetime.fem.timegrid import uniform_time_grid
+        from spacetime.models import get_problem
+        from spacetime.solver.heateq import HeatSolver
 
         s = HeatSolver(get_problem("smooth2d"),
                        P1System.from_mesh(unit_square_mesh(8)),
@@ -293,7 +297,7 @@ class TestReviewRegressions:
     """Fixes from the round-1 review passes."""
 
     def test_checkpoint_roundtrip_without_extension(self, tmp_path):
-        from spacetime_tpu.utils.checkpoint import load_solution, save_solution
+        from spacetime.utils.checkpoint import load_solution, save_solution
 
         path = str(tmp_path / "state")  # same string for save and load
         save_solution(path, np.ones((3, 2)), {"iterations": 5})
@@ -301,28 +305,26 @@ class TestReviewRegressions:
         assert U.shape == (3, 2) and int(meta["iterations"]) == 5
 
     def test_explicit_eager_operators_after_solve(self):
-        # apply_S/apply_KX with the GLOBAL params (Lanczos diagnostics) must
-        # not try to use the per-shard Pallas kernels built for the local
-        # layout (was: KeyError 'cols').
+        # apply_S/apply_KX with the GLOBAL params (Lanczos diagnostics)
+        # after a solve that built the per-shard local-layout params.
         import jax
 
         if len(jax.devices()) < 4:
             pytest.skip("needs virtual devices")
         import jax.numpy as jnp
 
-        from spacetime_tpu.fem import P1System, unit_square_mesh
-        from spacetime_tpu.fem.timegrid import uniform_time_grid
-        from spacetime_tpu.models import get_problem
-        from spacetime_tpu.parallel import ExplicitHeatSolver, make_time_mesh
-        from spacetime_tpu.solver.lanczos import lanczos_condition
+        from spacetime.fem import P1System, unit_square_mesh
+        from spacetime.fem.timegrid import uniform_time_grid
+        from spacetime.models import get_problem
+        from spacetime.parallel import ExplicitHeatSolver, make_time_mesh
+        from spacetime.solver.lanczos import lanczos_condition
 
         s = ExplicitHeatSolver(
             get_problem("smooth2d"),
             P1System.from_mesh(unit_square_mesh(16)),
             uniform_time_grid(4), make_time_mesh(4),
-            dtype=jnp.float32, inner="mg", pallas=True,
+            dtype=jnp.float32, inner="mg",
         )
-        s.mg_pallas_min_points = 0  # force kernels (interpret mode on CPU)
         r = s.solve(tol=1e-4, compute_error=False)
         assert r.converged
         est = lanczos_condition(
@@ -335,11 +337,11 @@ class TestReviewRegressions:
 
         if len(jax.devices()) < 4:
             pytest.skip("needs virtual devices")
-        from spacetime_tpu.fem import P1System, unit_square_mesh
-        from spacetime_tpu.fem.timegrid import uniform_time_grid
-        from spacetime_tpu.models import get_problem
-        from spacetime_tpu.parallel import ShardedHeatSolver, make_time_mesh
-        from spacetime_tpu.solver.heateq import HeatSolver
+        from spacetime.fem import P1System, unit_square_mesh
+        from spacetime.fem.timegrid import uniform_time_grid
+        from spacetime.models import get_problem
+        from spacetime.parallel import ShardedHeatSolver, make_time_mesh
+        from spacetime.solver.heateq import HeatSolver
 
         problem = get_problem("smooth2d")
         system = P1System.from_mesh(unit_square_mesh(8))
@@ -359,10 +361,10 @@ class TestReviewRegressions:
     def test_refined_honors_changed_inner_params(self):
         import jax.numpy as jnp
 
-        from spacetime_tpu.fem import P1System, unit_square_mesh
-        from spacetime_tpu.fem.timegrid import uniform_time_grid
-        from spacetime_tpu.models import get_problem
-        from spacetime_tpu.solver.heateq import HeatSolver
+        from spacetime.fem import P1System, unit_square_mesh
+        from spacetime.fem.timegrid import uniform_time_grid
+        from spacetime.models import get_problem
+        from spacetime.solver.heateq import HeatSolver
 
         s = HeatSolver(get_problem("smooth2d"),
                        P1System.from_mesh(unit_square_mesh(8)),
@@ -384,11 +386,11 @@ class TestReviewRegressions:
             pytest.skip("needs virtual devices")
         import jax.numpy as jnp
 
-        from spacetime_tpu.fem import P1System, unit_square_mesh
-        from spacetime_tpu.fem.timegrid import uniform_time_grid
-        from spacetime_tpu.models import get_problem
-        from spacetime_tpu.parallel import ShardedHeatSolver, make_time_mesh
-        from spacetime_tpu.solver.heateq import HeatSolver
+        from spacetime.fem import P1System, unit_square_mesh
+        from spacetime.fem.timegrid import uniform_time_grid
+        from spacetime.models import get_problem
+        from spacetime.parallel import ShardedHeatSolver, make_time_mesh
+        from spacetime.solver.heateq import HeatSolver
 
         problem = get_problem("smooth2d")
         system = P1System.from_mesh(unit_square_mesh(8))
@@ -411,10 +413,10 @@ class TestDeterminism:
     reference's by-construction MPI determinism)."""
 
     def test_repeat_solves_identical(self):
-        from spacetime_tpu.fem import P1System, unit_square_mesh
-        from spacetime_tpu.fem.timegrid import uniform_time_grid
-        from spacetime_tpu.models import get_problem
-        from spacetime_tpu.solver.heateq import HeatSolver
+        from spacetime.fem import P1System, unit_square_mesh
+        from spacetime.fem.timegrid import uniform_time_grid
+        from spacetime.models import get_problem
+        from spacetime.solver.heateq import HeatSolver
 
         problem = get_problem("smooth2d")
         system = P1System.from_mesh(unit_square_mesh(8))
@@ -434,10 +436,10 @@ class TestDeterminism:
 
         if len(jax.devices()) < 8:
             pytest.skip("needs virtual devices")
-        from spacetime_tpu.fem import P1System, unit_square_mesh
-        from spacetime_tpu.fem.timegrid import uniform_time_grid
-        from spacetime_tpu.models import get_problem
-        from spacetime_tpu.parallel import ExplicitHeatSolver, make_time_mesh
+        from spacetime.fem import P1System, unit_square_mesh
+        from spacetime.fem.timegrid import uniform_time_grid
+        from spacetime.models import get_problem
+        from spacetime.parallel import ExplicitHeatSolver, make_time_mesh
 
         problem = get_problem("smooth2d")
         system = P1System.from_mesh(unit_square_mesh(8))
@@ -454,12 +456,12 @@ class TestProblemRegistry:
     def test_register_and_solve(self):
         """A user-registered manufactured problem flows through get_problem
         and solves with autodiff-derived source/initial data."""
-        from spacetime_tpu.fem import P1System, unit_square_mesh
-        from spacetime_tpu.fem.timegrid import uniform_time_grid
-        from spacetime_tpu.models import (
+        from spacetime.fem import P1System, unit_square_mesh
+        from spacetime.fem.timegrid import uniform_time_grid
+        from spacetime.models import (
             PROBLEMS, Problem, get_problem, register_problem,
         )
-        from spacetime_tpu.solver.heateq import HeatSolver
+        from spacetime.solver.heateq import HeatSolver
 
         def exact(t, x):
             import jax.numpy as jnp
@@ -484,7 +486,7 @@ class TestProblemRegistry:
             PROBLEMS.pop(name, None)
 
     def test_register_rejects_dataless(self):
-        from spacetime_tpu.models import Problem, register_problem
+        from spacetime.models import Problem, register_problem
 
         with pytest.raises(ValueError, match="exact solution"):
             register_problem(Problem(name="_bad", dim=2, exact=None))
@@ -504,11 +506,11 @@ class TestExplicitRefined:
             pytest.skip("needs virtual devices")
         import jax.numpy as jnp
 
-        from spacetime_tpu.fem import P1System, unit_square_mesh
-        from spacetime_tpu.fem.timegrid import uniform_time_grid
-        from spacetime_tpu.models import get_problem
-        from spacetime_tpu.parallel import ExplicitHeatSolver, make_time_mesh
-        from spacetime_tpu.solver.heateq import HeatSolver
+        from spacetime.fem import P1System, unit_square_mesh
+        from spacetime.fem.timegrid import uniform_time_grid
+        from spacetime.models import get_problem
+        from spacetime.parallel import ExplicitHeatSolver, make_time_mesh
+        from spacetime.solver.heateq import HeatSolver
 
         problem = get_problem("smooth2d")
         system = P1System.from_mesh(unit_square_mesh(8))
@@ -531,10 +533,10 @@ class TestExplicitRefined:
             pytest.skip("needs virtual devices")
         import jax.numpy as jnp
 
-        from spacetime_tpu.fem import P1System, unit_square_mesh
-        from spacetime_tpu.fem.timegrid import uniform_time_grid
-        from spacetime_tpu.models import get_problem
-        from spacetime_tpu.parallel import ExplicitHeatSolver, make_time_mesh
+        from spacetime.fem import P1System, unit_square_mesh
+        from spacetime.fem.timegrid import uniform_time_grid
+        from spacetime.models import get_problem
+        from spacetime.parallel import ExplicitHeatSolver, make_time_mesh
 
         problem = get_problem("smooth2d")
         system = P1System.from_mesh(unit_square_mesh(8))
@@ -556,11 +558,11 @@ def test_explicit_refined_with_error():
         pytest.skip("needs virtual devices")
     import jax.numpy as jnp
 
-    from spacetime_tpu.fem import P1System, unit_square_mesh
-    from spacetime_tpu.fem.timegrid import uniform_time_grid
-    from spacetime_tpu.models import get_problem
-    from spacetime_tpu.parallel import ExplicitHeatSolver, make_time_mesh
-    from spacetime_tpu.solver.heateq import HeatSolver
+    from spacetime.fem import P1System, unit_square_mesh
+    from spacetime.fem.timegrid import uniform_time_grid
+    from spacetime.models import get_problem
+    from spacetime.parallel import ExplicitHeatSolver, make_time_mesh
+    from spacetime.solver.heateq import HeatSolver
 
     problem = get_problem("smooth2d")
     system = P1System.from_mesh(unit_square_mesh(8))
@@ -579,6 +581,7 @@ class TestRound3CLI:
     def test_pcg_flex_flag(self, tmp_path):
         out = tmp_path / "res.jsonl"
         rc = run_main([
+            "--device", "cpu",
             "--backend", "jax", "--space-n", "8", "--time-levels", "3",
             "--pcg", "flex", "--no-error", "--out", str(out),
         ])
@@ -603,6 +606,7 @@ class TestRound3CLI:
 
     def test_explicit2d_bad_space_devices(self):
         assert run_main([
+            "--device", "cpu",
             "--backend", "explicit2d", "--space-devices", "0",
             "--space-n", "8", "--time-levels", "3",
         ]) == 2
@@ -625,12 +629,14 @@ class TestRound3CLI:
     def test_flex_resume_falls_back_to_restart(self, tmp_path):
         ck = str(tmp_path / "ck")
         rc = run_main([
+            "--device", "cpu",
             "--backend", "jax", "--space-n", "8", "--time-levels", "3",
             "--tol", "1e-3", "--no-error", "--checkpoint", ck,
             "--checkpoint-every", "3", "--out", "",
         ])
         assert rc == 0
         rc = run_main([
+            "--device", "cpu",
             "--backend", "jax", "--space-n", "8", "--time-levels", "3",
             "--pcg", "flex", "--resume-from", ck, "--no-error", "--out", "",
         ])

@@ -1,9 +1,9 @@
 """Device-resident load quadrature (fem/assembly.device_spacetime_loads).
 
 The host NumPy quadrature is the parity oracle; the device path must agree
-to machine precision in f64 and to f32-rounding tolerance in f32 (on TPU the
-f32 path additionally differs by transcendental-accuracy ulps — measured
-~4e-6 relative; these CPU tests pin the algorithm, the TPU gap is hardware).
+to machine precision in f64 and to f32-rounding tolerance in f32 (on an
+accelerator the f32 path may additionally differ by the transcendental
+functions' ulps; these CPU tests pin the algorithm).
 """
 
 import jax
@@ -11,16 +11,16 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from spacetime_tpu.fem import (
+from spacetime.fem import (
     P1System,
     device_spacetime_loads,
     spacetime_loads,
     unit_cube_mesh,
     unit_square_mesh,
 )
-from spacetime_tpu.fem.timegrid import graded_time_grid, uniform_time_grid
-from spacetime_tpu.models import get_problem
-from spacetime_tpu.solver.heateq import HeatSolver
+from spacetime.fem.timegrid import graded_time_grid, uniform_time_grid
+from spacetime.models import get_problem
+from spacetime.solver.heateq import HeatSolver
 
 
 def _host(problem, mesh, grid):
@@ -69,8 +69,8 @@ class TestDeviceLoads:
     def test_element_blocking_invariant(self, monkeypatch):
         # Forcing multi-block element scans (incl. a padded tail block)
         # must reproduce the single-block loads to rounding — the big-3D
-        # path where the unblocked quadrature lane-pads past HBM.
-        from spacetime_tpu.fem import assembly
+        # path, where blocking bounds the quadrature's working set.
+        from spacetime.fem import assembly
 
         p = get_problem("smooth3d")
         mesh = unit_cube_mesh(6)  # 1080 tets
@@ -138,7 +138,7 @@ class TestSolverRhsMode:
         )
 
     def test_device_error_matches_host_error(self):
-        from spacetime_tpu.fem.errors import (
+        from spacetime.fem.errors import (
             device_l2_error_spacetime,
             l2_error_spacetime,
         )
@@ -157,10 +157,10 @@ class TestSolverRhsMode:
 
     def test_device_error_element_blocking(self, monkeypatch):
         # Forced multi-block element scans (incl. padded tail block) must
-        # match the host quadrature — the big-3D path where the unblocked
-        # error buffers lane-pad past HBM.
-        from spacetime_tpu.fem import assembly
-        from spacetime_tpu.fem.errors import (
+        # match the host quadrature — the big-3D path, where blocking bounds
+        # the error quadrature's working set.
+        from spacetime.fem import assembly
+        from spacetime.fem.errors import (
             device_l2_error_spacetime,
             l2_error_spacetime,
         )
@@ -186,7 +186,7 @@ class TestSolverRhsMode:
 
     def test_f64_device_mode_falls_back_to_host(self):
         # explicit rhs='device' + f64 dtype: assemble_rhs_host keeps the
-        # host parity loads for the f64 arrays (solve_refined contract).
+        # host parity loads for an f64 solver (the oracle parity contract).
         s = self._solver(dtype=jnp.float64, rhs="device")
         gL, _, _ = s.assemble_rhs_host()
         host = spacetime_loads(s.problem, s.system.mesh, s.grid)[0]

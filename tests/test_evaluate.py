@@ -8,7 +8,7 @@ coefficient arrays.
 import numpy as np
 import pytest
 
-from spacetime_tpu.fem import (
+from spacetime.fem import (
     evaluate_solution,
     l_shape_mesh,
     locate_points,
@@ -16,9 +16,9 @@ from spacetime_tpu.fem import (
     unit_square_mesh,
     uniform_time_grid,
 )
-from spacetime_tpu.models import get_problem
-from spacetime_tpu.oracle.solver import OracleSolver
-from spacetime_tpu.fem import P1System
+from spacetime.models import get_problem
+from spacetime.oracle.solver import OracleSolver
+from spacetime.fem import P1System
 
 
 @pytest.mark.parametrize(

@@ -1,8 +1,8 @@
 """2-D ('time','space') explicit shard_map mesh: parity vs the serial solver.
 
 The spatial-domain-decomposition stretch (SURVEY.md §2 parallelism table —
-the reference replicates space per rank; this is the declared TPU-native
-extension, VERDICT.md round-2 item 1): duplicated halo rows over 'time' plus
+the reference replicates space per rank; this is the framework's own
+extension): duplicated halo rows over 'time' plus
 padded plane slabs with ppermute halo exchanges over 'space' must reproduce
 the serial residual histories to reduction-order rounding — including
 uneven gs[0] % P_s splits (gs[0] = 2^k - 1 never divides an even P_s).
@@ -12,11 +12,11 @@ import jax
 import numpy as np
 import pytest
 
-from spacetime_tpu.fem import P1System, unit_cube_mesh, unit_square_mesh
-from spacetime_tpu.fem.timegrid import graded_time_grid, uniform_time_grid
-from spacetime_tpu.models import get_problem
-from spacetime_tpu.parallel import Explicit2DHeatSolver, make_spacetime_mesh
-from spacetime_tpu.solver.heateq import HeatSolver
+from spacetime.fem import P1System, unit_cube_mesh, unit_square_mesh
+from spacetime.fem.timegrid import graded_time_grid, uniform_time_grid
+from spacetime.models import get_problem
+from spacetime.parallel import Explicit2DHeatSolver, make_spacetime_mesh
+from spacetime.solver.heateq import HeatSolver
 
 requires_multidevice = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 virtual devices"
@@ -147,142 +147,6 @@ class TestExplicit2D:
         assert resumed.converged
         assert resumed.iterations < full.iterations
         np.testing.assert_allclose(resumed.U, full.U, rtol=0, atol=1e-9)
-
-    @pytest.mark.slow
-    def test_pallas_kron_per_shard(self):
-        # Fused B/Bᵀ(+stab) kernels on halo-extended spatial slabs
-        # (interpret mode on CPU): same solve as the XLA-stencil 2-D path.
-        import jax.numpy as jnp
-
-        problem = get_problem("smooth2d")
-        system = P1System.from_mesh(unit_square_mesh(16))
-        grid = uniform_time_grid(5)
-        mesh = make_spacetime_mesh(4, 2)
-        kw = dict(dtype=jnp.float32, inner="mg", space_n=16)
-        r0 = Explicit2DHeatSolver(
-            problem, system, grid, mesh, pallas=False, **kw
-        ).solve(tol=1e-5, compute_error=False)
-        ex = Explicit2DHeatSolver(
-            problem, system, grid, mesh, pallas=True, **kw
-        )
-        r1 = ex.solve(tol=1e-5, compute_error=False)
-        assert ex._ekron2, "kron kernels not built on the 2-D mesh"
-        assert r1.iterations == r0.iterations
-        k = r0.iterations + 1
-        np.testing.assert_allclose(
-            r1.residuals[:k], r0.residuals[:k], rtol=1e-3
-        )
-
-    @pytest.mark.slow
-    def test_pallas_mg_per_shard(self):
-        # Masked per-shard smoother/residual kernels on the sharded MG
-        # levels (interpret mode; gate lowered so the CI grid uses them):
-        # the vmask operand must reproduce the zero-scale padding
-        # discipline inside the in-kernel Chebyshev recurrence.
-        import jax.numpy as jnp
-
-        problem = get_problem("smooth2d")
-        system = P1System.from_mesh(unit_square_mesh(16))
-        grid = uniform_time_grid(5)
-        mesh = make_spacetime_mesh(4, 2)
-        kw = dict(dtype=jnp.float32, inner="mg", space_n=16)
-        r0 = Explicit2DHeatSolver(
-            problem, system, grid, mesh, pallas=False, **kw
-        ).solve(tol=1e-5, compute_error=False)
-        ex = Explicit2DHeatSolver(
-            problem, system, grid, mesh, pallas=True, **kw
-        )
-        ex.mg_pallas_min_points = 1
-        r1 = ex.solve(tol=1e-5, compute_error=False)
-        pls = ex._e_pl2_for(jnp.float32, "kx")
-        assert pls is not None and any(p is not None for p in pls)
-        assert r1.iterations == r0.iterations
-        k = r0.iterations + 1
-        np.testing.assert_allclose(
-            r1.residuals[:k], r0.residuals[:k], rtol=1e-3
-        )
-
-    def _pallas_ab(self, problem_name, system, grid, pt, ps, want_depth,
-                   **kw):
-        """pallas=False vs pallas=True (gate lowered) A/B: identical
-        iteration counts, histories to fused-kernel rounding."""
-        import jax.numpy as jnp
-
-        problem = get_problem(problem_name)
-        base = dict(dtype=jnp.float32, inner="mg", **kw)
-        mesh = make_spacetime_mesh(pt, ps)
-        r0 = Explicit2DHeatSolver(
-            problem, system, grid, mesh, pallas=False, **base
-        ).solve(tol=1e-5, compute_error=False)
-        ex = Explicit2DHeatSolver(
-            problem, system, grid, mesh, pallas=True, **base
-        )
-        ex.mg_pallas_min_points = 1
-        r1 = ex.solve(tol=1e-5, compute_error=False)
-        assert ex._sp_depth == want_depth
-        assert r1.iterations == r0.iterations
-        k = r0.iterations + 1
-        np.testing.assert_allclose(
-            r1.residuals[:k], r0.residuals[:k], rtol=1e-3
-        )
-        return ex
-
-    def test_sh_fused_transfer_stages(self):
-        # Per-shard FUSED transfer stages (VERDICT round-3 item 4): with
-        # symmetric V(nu,nu) the sharded fused_pre/fused_post kernels run
-        # the even-extent halo-slab chain offsets + in-kernel vmask; the
-        # 15-plane grid over P_s=2 exercises the uneven split (one padding
-        # plane) inside the kernels' restrict/prolong arithmetic.
-        import jax.numpy as jnp
-
-        system = P1System.from_mesh(unit_square_mesh(16))
-        ex = self._pallas_ab(
-            "smooth2d", system, uniform_time_grid(5), 4, 2, 1, space_n=16
-        )
-        # the fused path is reachable: interpret-mode halo carries the
-        # kw >= nu+1 contract and level 0 supports the sharded stages
-        pls = ex._e_pl2_for(jnp.float32, "ky")
-        pj = pls[0]
-        assert pj is not None and pj.sh_transfer_ok(ex.Rs)
-        assert pj.sh_fused_ready(ex.Rs, ex._sp_kw["ky"])
-        ep, _ = ex.eparams_for(jnp.float32)
-        assert "tx" in ep["ms_ky"][0]
-
-    @pytest.mark.slow
-    def test_sh_semi_transfer_stages(self):
-        # Asymmetric V(2,1): the fused stages bake one nu, so the V-cycle
-        # must route residual+restrict / prolong+correct through the
-        # sharded SEMI kernels instead.
-        import jax.numpy as jnp
-
-        system = P1System.from_mesh(unit_square_mesh(16))
-        ex = self._pallas_ab(
-            "smooth2d", system, uniform_time_grid(5), 4, 2, 1,
-            space_n=16, mg_nu_post=1,
-        )
-        pj = ex._e_pl2_for(jnp.float32, "ky")[0]
-        assert pj is not None and pj.sh_transfer_ok(ex.Rs)
-        assert not pj.sh_fused_ready(ex.Rs, ex._sp_kw["ky"])
-
-    @pytest.mark.slow
-    def test_sh_transfer_deep_uneven(self):
-        # 31 planes over P_s=4 (Rs=8, one padding plane): sharded fused
-        # stages at the fine level with an uneven split and odd extents
-        # below the sharded depth.
-        system = P1System.from_mesh(unit_square_mesh(32))
-        ex = self._pallas_ab(
-            "smooth2d", system, uniform_time_grid(4), 2, 4, 1, space_n=32
-        )
-
-    @pytest.mark.slow
-    def test_sh_transfer_3d(self):
-        # 3-D: the sharded leading axis is z — the kernels' rest-axis
-        # pairsum/repeat offsets (h, h+1) / (2hc−h) instead of the baked
-        # odd-extent (0, 1) / (0, −1).
-        system = P1System.from_mesh(unit_cube_mesh(16))
-        self._pallas_ab(
-            "smooth3d", system, uniform_time_grid(3), 2, 2, 1, space_n=16
-        )
 
     def test_rejects_unsupported(self):
         system = P1System.from_mesh(unit_square_mesh(8))

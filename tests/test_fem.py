@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from spacetime_tpu.fem import (
+from spacetime.fem import (
     P1System,
     load_vector,
     time_matrices,
@@ -24,7 +24,7 @@ class TestSquareMesh:
     def test_total_area(self):
         mesh = unit_square_mesh(5)
         M, A = __import__(
-            "spacetime_tpu.fem.assembly", fromlist=["assemble_p1"]
+            "spacetime.fem.assembly", fromlist=["assemble_p1"]
         ).assemble_p1(mesh)
         # sum of mass matrix = |Omega| = 1
         assert np.isclose(M.sum(), 1.0)
@@ -62,7 +62,7 @@ class TestCubeMesh:
     def test_counts_and_volume(self):
         mesh = unit_cube_mesh(3)
         assert mesh.elements.shape == (6 * 27, 4)
-        from spacetime_tpu.fem.assembly import assemble_p1
+        from spacetime.fem.assembly import assemble_p1
 
         M, A = assemble_p1(mesh)
         assert np.isclose(M.sum(), 1.0)

@@ -12,16 +12,16 @@ import pytest
 
 import jax.numpy as jnp
 
-from spacetime_tpu.fem import P1System, unit_cube_mesh, unit_square_mesh, uniform_time_grid
-from spacetime_tpu.fem.assembly import assemble_p1
-from spacetime_tpu.models import get_problem
-from spacetime_tpu.ops.multigrid import (
+from spacetime.fem import P1System, unit_cube_mesh, unit_square_mesh, uniform_time_grid
+from spacetime.fem.assembly import assemble_p1
+from spacetime.models import get_problem
+from spacetime.ops.multigrid import (
     GalerkinMultiShiftMultigrid,
     _transfer_fast,
     galerkin_coarsen,
     p1_interpolation_matrix,
 )
-from spacetime_tpu.solver.heateq import HeatSolver
+from spacetime.solver.heateq import HeatSolver
 
 KAPPA = lambda X: 1.0 + X[:, 0] + 0.5 * np.sin(np.pi * X[:, 1])
 REACT = lambda X: 1.0 + X[:, 1]
@@ -64,7 +64,7 @@ def test_weighted_rap_spd_and_pattern():
     mesh = unit_square_mesh(16)
     sys_w = P1System.from_mesh(mesh, kappa=KAPPA, reaction=REACT)
     Ac = galerkin_coarsen(sys_w.A, 2, 8)
-    from spacetime_tpu.ops.sparse import DiaMatrix
+    from spacetime.ops.sparse import DiaMatrix
 
     fine_ndiag = DiaMatrix.from_csr(sys_w.A).ndiag
     assert DiaMatrix.from_csr(Ac).ndiag == fine_ndiag  # 7-point preserved
@@ -124,7 +124,7 @@ def test_varcoef_mg_auto_selected_at_scale():
 
 
 def test_varcoef_mg_sharded_matches_serial():
-    from spacetime_tpu.parallel import ShardedHeatSolver, make_time_mesh
+    from spacetime.parallel import ShardedHeatSolver, make_time_mesh
 
     prob = get_problem("varcoef2d")
     system = P1System.from_problem(prob, unit_square_mesh(16))

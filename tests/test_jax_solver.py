@@ -4,8 +4,8 @@ gate — identical iteration counts, residual histories to fp tolerance)."""
 import numpy as np
 import pytest
 
-from spacetime_tpu.oracle import solve_heat_equation
-from spacetime_tpu.solver import solve_heat_equation_tpu
+from spacetime.oracle import solve_heat_equation
+from spacetime.solver import solve_heat_equation_device
 
 
 @pytest.mark.parametrize(
@@ -23,7 +23,7 @@ def test_parity_with_oracle(problem, n, J, extra):
         problem, space_n=n, time_levels=J, extra_time_levels=extra, tol=1e-6,
         compute_error=False,
     )
-    rj = solve_heat_equation_tpu(
+    rj = solve_heat_equation_device(
         problem, space_n=n, time_levels=J, extra_time_levels=extra, tol=1e-6,
         compute_error=False,
     )
@@ -38,7 +38,7 @@ def test_tight_tolerance_1e8():
     ro = solve_heat_equation(
         "smooth2d", space_n=16, time_levels=4, tol=1e-8, compute_error=False
     )
-    rj = solve_heat_equation_tpu(
+    rj = solve_heat_equation_device(
         "smooth2d", space_n=16, time_levels=4, tol=1e-8, compute_error=False
     )
     assert rj.converged and rj.iterations == ro.iterations
@@ -48,7 +48,7 @@ def test_tight_tolerance_1e8():
 def test_float32_mode_converges_loosely():
     import jax.numpy as jnp
 
-    r = solve_heat_equation_tpu(
+    r = solve_heat_equation_device(
         "smooth2d", space_n=8, time_levels=3, tol=1e-4, dtype=jnp.float32,
         compute_error=True,
     )
@@ -65,10 +65,10 @@ if __name__ == "__main__":
 def test_mixed_precision_refinement():
     # f32 inner PCG + f64 residual loop reaches 1e-8 in a few rounds and
     # matches the oracle's solution quality (BASELINE.md cfg1b analogue).
-    from spacetime_tpu.fem import P1System, unit_square_mesh
-    from spacetime_tpu.fem.timegrid import uniform_time_grid
-    from spacetime_tpu.models import get_problem
-    from spacetime_tpu.solver.heateq import HeatSolver
+    from spacetime.fem import P1System, unit_square_mesh
+    from spacetime.fem.timegrid import uniform_time_grid
+    from spacetime.models import get_problem
+    from spacetime.solver.heateq import HeatSolver
 
     s = HeatSolver(
         get_problem("smooth2d"),
@@ -85,10 +85,10 @@ def test_mixed_precision_refinement():
 def test_dia_fallback_matches_stencil():
     # The generic flat-DIA path (unstructured-mesh fallback) must agree with
     # the structured stencil path exactly.
-    from spacetime_tpu.fem import P1System, unit_square_mesh
-    from spacetime_tpu.fem.timegrid import uniform_time_grid
-    from spacetime_tpu.models import get_problem
-    from spacetime_tpu.solver.heateq import HeatSolver
+    from spacetime.fem import P1System, unit_square_mesh
+    from spacetime.fem.timegrid import uniform_time_grid
+    from spacetime.models import get_problem
+    from spacetime.solver.heateq import HeatSolver
 
     problem = get_problem("smooth2d")
     system = P1System.from_mesh(unit_square_mesh(8))
@@ -109,11 +109,11 @@ def test_singular3d_graded_parity():
     # flat iteration counts.
     import jax.numpy as jnp
 
-    from spacetime_tpu.fem import P1System, unit_cube_mesh
-    from spacetime_tpu.fem.timegrid import graded_time_grid
-    from spacetime_tpu.models import get_problem
-    from spacetime_tpu.oracle.solver import OracleSolver
-    from spacetime_tpu.solver.heateq import HeatSolver
+    from spacetime.fem import P1System, unit_cube_mesh
+    from spacetime.fem.timegrid import graded_time_grid
+    from spacetime.models import get_problem
+    from spacetime.oracle.solver import OracleSolver
+    from spacetime.solver.heateq import HeatSolver
 
     problem = get_problem("singular3d")
     system = P1System.from_mesh(unit_cube_mesh(6))
@@ -135,10 +135,10 @@ def test_donate_rhs_and_scalar_x0_placeholder():
     including across repeated and warm-started solves."""
     import jax.numpy as jnp
 
-    from spacetime_tpu.fem import P1System, unit_square_mesh
-    from spacetime_tpu.fem.timegrid import uniform_time_grid
-    from spacetime_tpu.models import get_problem
-    from spacetime_tpu.solver.heateq import HeatSolver
+    from spacetime.fem import P1System, unit_square_mesh
+    from spacetime.fem.timegrid import uniform_time_grid
+    from spacetime.models import get_problem
+    from spacetime.solver.heateq import HeatSolver
 
     prob = get_problem("smooth2d")
     system = P1System.from_mesh(unit_square_mesh(12))

@@ -9,7 +9,7 @@ solve on a loaded mesh reproduces the solve on the in-memory original.
 import numpy as np
 import pytest
 
-from spacetime_tpu.fem import (
+from spacetime.fem import (
     P1System,
     l_shape_mesh,
     load_mesh,
@@ -18,7 +18,7 @@ from spacetime_tpu.fem import (
     unit_square_mesh,
     uniform_time_grid,
 )
-from spacetime_tpu.models import get_problem
+from spacetime.models import get_problem
 
 
 @pytest.mark.parametrize("fmt,ext", [("gmsh", ".msh"), ("triangle", ".node")])
@@ -52,7 +52,7 @@ def test_roundtrip_operators_match(tmp_path):
 
 def test_solve_on_loaded_mesh_matches(tmp_path):
     """Oracle solve on a file-loaded mesh reproduces the in-memory solve."""
-    from spacetime_tpu.oracle.solver import OracleSolver
+    from spacetime.oracle.solver import OracleSolver
 
     problem = get_problem("lshape2d")
     grid = uniform_time_grid(3)
@@ -124,7 +124,7 @@ def test_error_cases(tmp_path):
 
 def test_cli_mesh_file(tmp_path, capsys):
     """--mesh-file drives the jax backend through the generic path."""
-    from spacetime_tpu.run import main
+    from spacetime.run import main
 
     mesh = l_shape_mesh(6)
     path = str(tmp_path / "dom.msh")
@@ -141,7 +141,7 @@ def test_cli_mesh_file(tmp_path, capsys):
 
 def test_cli_refine_flag(capsys):
     """--refine red-refines the generated mesh through the generic path."""
-    from spacetime_tpu.run import main
+    from spacetime.run import main
 
     rc = main([
         "--backend", "jax", "--device", "cpu", "--problem", "lshape2d",
@@ -221,7 +221,7 @@ def test_duplicate_elements_rejected(tmp_path):
 def test_degenerate_element_rejected():
     """A zero-area (collinear-vertex) element must fail assembly loudly
     instead of poisoning the operators with inf/NaN."""
-    from spacetime_tpu.fem import Mesh
+    from spacetime.fem import Mesh
 
     base = unit_square_mesh(2)
     # append a collinear triangle along the bottom edge (distinct vertices)

@@ -6,10 +6,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from spacetime_tpu.fem import P1System, unit_cube_mesh, unit_square_mesh
-from spacetime_tpu.fem.timegrid import uniform_time_grid
-from spacetime_tpu.models import get_problem
-from spacetime_tpu.ops.multigrid import (
+from spacetime.fem import P1System, unit_cube_mesh, unit_square_mesh
+from spacetime.fem.timegrid import uniform_time_grid
+from spacetime.models import get_problem
+from spacetime.ops.multigrid import (
     ShiftedMultigrid,
     _interp2d,
     _interp3d,
@@ -18,9 +18,9 @@ from spacetime_tpu.ops.multigrid import (
     chebyshev_inverse,
     mass_spectral_bounds,
 )
-from spacetime_tpu.ops.sparse import DiaMatrix
-from spacetime_tpu.ops.stencil import StencilOperator
-from spacetime_tpu.solver.heateq import HeatSolver
+from spacetime.ops.sparse import DiaMatrix
+from spacetime.ops.stencil import StencilOperator
+from spacetime.solver.heateq import HeatSolver
 
 
 class TestTransfers:
@@ -161,7 +161,7 @@ def test_conv_transfers_match_scatter_forms():
     """The conv-based prolongation/restriction must equal the strided
     scatter/slice reference forms exactly (they are the same operator)."""
     import jax.numpy as jnp
-    from spacetime_tpu.ops.multigrid import (
+    from spacetime.ops.multigrid import (
         _interp2d, _interp2d_scatter, _restrict2d, _restrict2d_slices,
         _interp3d, _interp3d_scatter, _restrict3d, _restrict3d_slices)
 
@@ -194,10 +194,10 @@ def test_nu_post_asymmetric_cycles():
     neutral way to cut it."""
     import jax.numpy as jnp
 
-    from spacetime_tpu.fem import P1System, unit_square_mesh
-    from spacetime_tpu.fem.timegrid import uniform_time_grid
-    from spacetime_tpu.models import get_problem
-    from spacetime_tpu.solver.heateq import HeatSolver
+    from spacetime.fem import P1System, unit_square_mesh
+    from spacetime.fem.timegrid import uniform_time_grid
+    from spacetime.models import get_problem
+    from spacetime.solver.heateq import HeatSolver
 
     prob = get_problem("smooth2d")
     system = P1System.from_mesh(unit_square_mesh(16))
@@ -218,34 +218,3 @@ def test_nu_post_asymmetric_cycles():
     np.testing.assert_allclose(v21.U, ref.U, atol=1e-4)
 
 
-@pytest.mark.slow
-def test_nu_post_pallas_kernels_match_xla():
-    """Pallas smoothers with a distinct post-degree kernel (interpret
-    mode): same iterations as the XLA V(2,1) path; the fully fused stages
-    must gate themselves off (they bake one nu)."""
-    import jax.numpy as jnp
-
-    from spacetime_tpu.fem import P1System, unit_square_mesh
-    from spacetime_tpu.fem.timegrid import uniform_time_grid
-    from spacetime_tpu.models import get_problem
-    from spacetime_tpu.solver.heateq import HeatSolver
-
-    prob = get_problem("smooth2d")
-    system = P1System.from_mesh(unit_square_mesh(16))
-    grid = uniform_time_grid(4)
-    kw = dict(dtype=jnp.float32, inner="mg", space_n=16, rhs="device",
-              mg_nu_post=1)
-    ref = HeatSolver(prob, system, grid, **kw).solve(
-        tol=1e-6, compute_error=False
-    )
-    s = HeatSolver(prob, system, grid, pallas_kron=True, **kw)
-    s.mg_pallas_min_points = 1
-    s._params_cache.clear()
-    s._ms_pl.clear()
-    s._ms_pl_kx.clear()
-    s.params = s.params_for(jnp.float32)
-    pls = s._ms_pl["float32"]
-    assert any(pj is not None for pj in pls)
-    assert all(pj is None or not pj.fused_ok for pj in pls)
-    out = s.solve(tol=1e-6, compute_error=False)
-    assert abs(out.iterations - ref.iterations) <= 1

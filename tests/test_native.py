@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from spacetime_tpu import native
-from spacetime_tpu.fem import unit_cube_mesh, unit_square_mesh
-from spacetime_tpu.fem.assembly import assemble_p1
+from spacetime import native
+from spacetime.fem import unit_cube_mesh, unit_square_mesh
+from spacetime.fem.assembly import assemble_p1
 
 
 requires_native = pytest.mark.skipif(
@@ -47,8 +47,8 @@ def test_native_sa_aggregation_bit_exact():
     ran the setup."""
     import scipy.sparse as sp
 
-    from spacetime_tpu.fem import P1System, l_shape_mesh
-    from spacetime_tpu.native import sa_aggregate_native
+    from spacetime.fem import P1System, l_shape_mesh
+    from spacetime.native import sa_aggregate_native
 
     sys_ = P1System.from_mesh(l_shape_mesh(32))
     A = sp.csr_matrix(sys_.A)

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from spacetime_tpu.fem import (
+from spacetime.fem import (
     P1System,
     l_shape_mesh,
     nested_interpolation,
@@ -16,16 +16,16 @@ from spacetime_tpu.fem import (
     uniform_time_grid,
     unit_cube_mesh,
 )
-from spacetime_tpu.fem.mesh import refine_uniform, sort_vertices_lex
-from spacetime_tpu.models import get_problem
-from spacetime_tpu.ops.multigrid import NestedMultiShiftMultigrid
-from spacetime_tpu.ops.sparse import DiaMatrix
-from spacetime_tpu.solver.heateq import HeatSolver
+from spacetime.fem.mesh import refine_uniform, sort_vertices_lex
+from spacetime.models import get_problem
+from spacetime.ops.multigrid import NestedMultiShiftMultigrid
+from spacetime.ops.sparse import DiaMatrix
+from spacetime.solver.heateq import HeatSolver
 
 
 def test_interpolation_matches_hat_evaluation():
     # P equals brute-force evaluation of coarse hats at fine vertices.
-    from spacetime_tpu.fem.evaluate import locate_points
+    from spacetime.fem.evaluate import locate_points
 
     base = l_shape_mesh(8)
     fine = refine_hierarchy(base, 1)
@@ -146,7 +146,7 @@ def test_sharded_parity_nested_mg():
     # 1-device vs 8-device GSPMD histories must match (CLAUDE.md invariant).
     import jax
 
-    from spacetime_tpu.parallel import ShardedHeatSolver, make_time_mesh
+    from spacetime.parallel import ShardedHeatSolver, make_time_mesh
 
     prob = get_problem("lshape2d")
     mesh = refine_hierarchy(l_shape_mesh(8), 1)
@@ -166,7 +166,7 @@ def test_mesh_file_roundtrip_refine_hierarchy(tmp_path):
     # User-facing combination: an IMPORTED mesh (no refinement record) gains
     # a nested hierarchy by refining in-framework — run.py --mesh-file
     # --refine K --inner mg.
-    from spacetime_tpu.fem import load_mesh, save_mesh
+    from spacetime.fem import load_mesh, save_mesh
 
     path = str(tmp_path / "lshape.msh")
     save_mesh(l_shape_mesh(8), path)

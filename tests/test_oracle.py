@@ -4,11 +4,11 @@ flat PCG iteration counts, and convergence rates."""
 import numpy as np
 import pytest
 
-from spacetime_tpu.fem import P1System, unit_square_mesh
-from spacetime_tpu.fem.timegrid import uniform_time_grid
-from spacetime_tpu.models import get_problem
-from spacetime_tpu.oracle import solve_heat_equation
-from spacetime_tpu.oracle.solver import OracleSolver
+from spacetime.fem import P1System, unit_square_mesh
+from spacetime.fem.timegrid import uniform_time_grid
+from spacetime.models import get_problem
+from spacetime.oracle import solve_heat_equation
+from spacetime.oracle.solver import OracleSolver
 
 
 @pytest.fixture(scope="module")
@@ -53,7 +53,7 @@ class TestOperators:
         # B matvec against explicit scipy.sparse.kron on the tiny grid,
         # including the half-grid condensation identity.
         import scipy.sparse as sp
-        from spacetime_tpu.fem import time_matrices
+        from spacetime.fem import time_matrices
 
         s = small_solver
         mats = time_matrices(s.grid)

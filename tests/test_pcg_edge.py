@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from spacetime_tpu.solver.pcg import pcg, pcg_chunk, pcg_fused, pcg_init
+from spacetime.solver.pcg import pcg, pcg_chunk, pcg_fused, pcg_init
 
 
 @pytest.fixture(scope="module")

@@ -5,7 +5,7 @@ pcg_flex replaces the Fletcher–Reeves beta with z⁺·(r⁺−r)/(r·z)
 vanishes in exact arithmetic, so histories must match the standard driver to
 rounding; for NON-symmetric preconditioners — the asymmetric V(nu, nu_post)
 multigrid cycles that blew standard PCG up 17→69 iterations at the 3D
-flagship (results_tpu/r2_nupost3d.log) — it restores local conjugacy and
+flagship — it restores local conjugacy and
 must converge in fewer iterations than the broken standard pairing.
 """
 
@@ -14,12 +14,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from spacetime_tpu.fem import P1System, unit_square_mesh
-from spacetime_tpu.fem.timegrid import uniform_time_grid
-from spacetime_tpu.models import get_problem
-from spacetime_tpu.parallel import ExplicitHeatSolver, make_time_mesh
-from spacetime_tpu.solver.heateq import HeatSolver
-from spacetime_tpu.solver.pcg import pcg, pcg_flex
+from spacetime.fem import P1System, unit_square_mesh
+from spacetime.fem.timegrid import uniform_time_grid
+from spacetime.models import get_problem
+from spacetime.parallel import ExplicitHeatSolver, make_time_mesh
+from spacetime.solver.heateq import HeatSolver
+from spacetime.solver.pcg import pcg, pcg_flex
 
 requires_multidevice = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 virtual devices"

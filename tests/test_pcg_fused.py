@@ -14,12 +14,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from spacetime_tpu.fem import P1System, unit_square_mesh
-from spacetime_tpu.fem.timegrid import uniform_time_grid
-from spacetime_tpu.models import get_problem
-from spacetime_tpu.parallel import ExplicitHeatSolver, make_time_mesh
-from spacetime_tpu.solver.heateq import HeatSolver
-from spacetime_tpu.solver.pcg import pcg, pcg_fused
+from spacetime.fem import P1System, unit_square_mesh
+from spacetime.fem.timegrid import uniform_time_grid
+from spacetime.models import get_problem
+from spacetime.parallel import ExplicitHeatSolver, make_time_mesh
+from spacetime.solver.heateq import HeatSolver
+from spacetime.solver.pcg import pcg, pcg_fused
 
 requires_multidevice = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 virtual devices"

@@ -12,12 +12,12 @@ import hashlib
 import numpy as np
 import pytest
 
-from spacetime_tpu.fem import P1System, unit_square_mesh
-from spacetime_tpu.fem.timegrid import _build
-from spacetime_tpu.models import get_problem
-from spacetime_tpu.ops.wavelets import build_wavelet_transform
-from spacetime_tpu.oracle.solver import OracleSolver
-from spacetime_tpu.solver.heateq import HeatSolver
+from spacetime.fem import P1System, unit_square_mesh
+from spacetime.fem.timegrid import _build
+from spacetime.models import get_problem
+from spacetime.ops.wavelets import build_wavelet_transform
+from spacetime.oracle.solver import OracleSolver
+from spacetime.solver.heateq import HeatSolver
 from tests.test_wavelets import brute_force_synthesis
 
 

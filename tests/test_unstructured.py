@@ -10,7 +10,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from spacetime_tpu.fem import (
+from spacetime.fem import (
     P1System,
     l_shape_mesh,
     refine_uniform,
@@ -18,9 +18,9 @@ from spacetime_tpu.fem import (
     unit_square_mesh,
     uniform_time_grid,
 )
-from spacetime_tpu.models import get_problem
-from spacetime_tpu.oracle.solver import OracleSolver, solve_heat_equation
-from spacetime_tpu.solver.heateq import HeatSolver
+from spacetime.models import get_problem
+from spacetime.oracle.solver import OracleSolver, solve_heat_equation
+from spacetime.solver.heateq import HeatSolver
 
 
 def _simplex_measure(verts):
@@ -110,15 +110,15 @@ def test_lshape_jax_dia_matches_oracle():
 
 
 def test_lshape_ell_solver_and_refinement():
-    """Blocked-ELL (Pallas interpret on CPU) f32 solve + mixed-precision
-    refinement on the unstructured path (f64 rounds fall back to DIA)."""
+    """Flat-DIA f32 solve + mixed-precision refinement on the unstructured
+    path (the format the former blocked-ELL path was checked against)."""
     problem = get_problem("lshape2d")
     system = P1System.from_mesh(l_shape_mesh(12))
     grid = uniform_time_grid(3)
     s64 = HeatSolver(problem, system, grid, dtype=jnp.float64)
     r64 = s64.solve(tol=1e-6)
-    se = HeatSolver(problem, system, grid, dtype=jnp.float32, spatial_format="ell")
-    assert se.spatial_format == "ell"
+    se = HeatSolver(problem, system, grid, dtype=jnp.float32, spatial_format="dia")
+    assert se.spatial_format == "dia"
     re_ = se.solve(tol=1e-6)
     assert abs(re_.iterations - r64.iterations) <= 1
     assert np.isclose(re_.l2_error, r64.l2_error, rtol=1e-3)
@@ -131,7 +131,7 @@ def test_unstructured_3d_tet_solve():
     """The generic (no grid_shape) path in 3D: a red-refined tet mesh of the
     cube solves through DIA + dense inner identically to the oracle, and the
     Chebyshev generic-scale inner reproduces it to outer-iteration parity."""
-    from spacetime_tpu.oracle.solver import OracleSolver
+    from spacetime.oracle.solver import OracleSolver
 
     problem = get_problem("smooth3d")
     mesh = refine_uniform(unit_cube_mesh(2))

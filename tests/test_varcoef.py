@@ -10,12 +10,12 @@ weighted (non-translation-invariant) operators must take.
 import numpy as np
 import pytest
 
-from spacetime_tpu.fem import P1System, unit_square_mesh, uniform_time_grid
-from spacetime_tpu.fem.assembly import assemble_p1
-from spacetime_tpu.models import Problem, get_problem
-from spacetime_tpu.oracle import solve_heat_equation
-from spacetime_tpu.solver import solve_heat_equation_tpu
-from spacetime_tpu.solver.heateq import HeatSolver
+from spacetime.fem import P1System, unit_square_mesh, uniform_time_grid
+from spacetime.fem.assembly import assemble_p1
+from spacetime.models import Problem, get_problem
+from spacetime.oracle import solve_heat_equation
+from spacetime.solver import solve_heat_equation_device
+from spacetime.solver.heateq import HeatSolver
 
 
 def _brute_force_weighted(mesh, kappa, reaction):
@@ -121,7 +121,7 @@ def test_varcoef_jax_matches_oracle():
     ro = solve_heat_equation(
         "varcoef2d", space_n=8, time_levels=3, tol=1e-6, compute_error=False
     )
-    rj = solve_heat_equation_tpu(
+    rj = solve_heat_equation_device(
         "varcoef2d", space_n=8, time_levels=3, tol=1e-6, compute_error=False
     )
     assert rj.converged and rj.iterations == ro.iterations
@@ -148,7 +148,7 @@ def test_varcoef_weighted_system_rejects_stencil():
 
 
 def test_varcoef_sharded_matches_serial():
-    from spacetime_tpu.parallel import ShardedHeatSolver, make_time_mesh
+    from spacetime.parallel import ShardedHeatSolver, make_time_mesh
 
     problem = get_problem("varcoef2d")
     system = P1System.from_problem(problem, unit_square_mesh(8))

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from spacetime_tpu.fem import unit_cube_mesh, unit_square_mesh, uniform_time_grid
-from spacetime_tpu.utils import write_vtk, write_vtk_series
+from spacetime.fem import unit_cube_mesh, unit_square_mesh, uniform_time_grid
+from spacetime.utils import write_vtk, write_vtk_series
 
 
 def _parse_vtk(path):
@@ -57,7 +57,7 @@ def test_write_vtk_series(tmp_path):
 
 
 def test_cli_save_vtk(tmp_path, capsys):
-    from spacetime_tpu.run import main
+    from spacetime.run import main
 
     prefix = str(tmp_path / "sol")
     rc = main([

@@ -4,8 +4,8 @@ vanishing moments, norm equivalence, locally refined grids)."""
 import numpy as np
 import pytest
 
-from spacetime_tpu.fem import uniform_time_grid, graded_time_grid, time_matrices
-from spacetime_tpu.ops.wavelets import build_wavelet_transform
+from spacetime.fem import uniform_time_grid, graded_time_grid, time_matrices
+from spacetime.ops.wavelets import build_wavelet_transform
 
 
 def brute_force_synthesis(grid, wt):
